@@ -1,15 +1,13 @@
-"""Healthy-window dispatch-rate experiment (round 5): how much of FVC
-v1's wall budget is the per-dispatch link RTT, and does chunk batching
+"""Dispatch-rate experiment: how much of FVC v1's wall budget is the
+per-dispatch cost, and does chunk batching
 (encode_chunk_batch_dispatch_src) reclaim it? Prints issue + serial
-finalize ms/chunk for single vs batch=2 dispatches. Run in a CLEAN
-window (benches/linkhealth.py) — a degraded window measured 3.7 s per
-dispatch issue and means nothing."""
+finalize ms/chunk for single vs batch=2 dispatches.
+
+Run: python benches/dispatch_rate.py"""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.makedirs("/tmp/flutpu-jax-cache", exist_ok=True)
-import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/flutpu-jax-cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from flutpu.platform import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 from flutpu.codec.fvc import FvcEncoder
@@ -56,6 +54,4 @@ def main():
 
 
 if __name__ == "__main__":
-    from flutpu.benchlock import hold_tpu_lock
-    with hold_tpu_lock("dispatch_rate.py", timeout_s=2400.0):
-        main()
+    main()

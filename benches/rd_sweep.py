@@ -30,7 +30,11 @@ if os.environ.get("FLUTPU_CPU"):
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-import numpy as np
+from flutpu.platform import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
+import numpy as np  # noqa: E402
 
 QS = (60, 70, 80, 85, 90, 95)
 GOP = 8

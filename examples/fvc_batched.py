@@ -1,9 +1,9 @@
 """Throughput-first FVC encoding: B independent chunks per device
-round trip (round 5).
+dispatch.
 
-Each dispatch on a high-latency link costs a round trip; FVC's 8-frame
-bitstream GOP is fixed (an I frame must start every chunk so hype can
-stitch), so the RTT-amortization lever is packing whole chunks:
+FVC's 8-frame bitstream GOP is fixed (an I frame must start every chunk
+so hype can stitch), so the lever that amortizes the per-dispatch cost
+is packing whole chunks:
 ``encode_chunk_batch_dispatch_src`` encodes B chunks in ONE program and
 ``encode_chunk_batch_finalize`` brings all of them back in ONE fetch.
 Streams are byte-identical to B separate dispatches and each chunk

@@ -1,9 +1,9 @@
-"""Chunk-per-chip SPMD encode with tpuhype on a device mesh.
+"""Chunk-per-device SPMD encode with tpuhype on a device mesh.
 
-Runs on real chips or a virtual CPU mesh:
+Runs on the cards of one host or a virtual CPU mesh:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 FLUTPU_CPU=1 \
       python examples/mesh_encode.py fvc-motion
-  # sequence-parallel: 4 chunks x 2 row stripes, halos over ICI
+  # sequence-parallel: 4 chunks x 2 row stripes, ring halo exchange
   XLA_FLAGS=--xla_force_host_platform_device_count=8 FLUTPU_CPU=1 \
       python examples/mesh_encode.py fvc-motion 2
 """

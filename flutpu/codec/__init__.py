@@ -1,9 +1,10 @@
-"""flutpu.codec — the TPU-native encode path.
+"""flutpu.codec — the device encode path.
 
 Where the reference delegates to off-the-shelf CPU encoders (x264 etc.), this
 framework owns the encoder: colorspace conversion, scaling, 8x8 DCT and
-quantization run as batched JAX/Pallas kernels on the MXU; entropy coding and
-bitstream packing run on the host (C++ fast path in native/bitstream).
+quantization run as batched JAX programs on the device, entropy bit packing
+runs there too (a Pallas kernel), and the host wraps the bitstreams (C++ fast
+path in native/bitstream).
 """
 
 from .base import VideoEncoder

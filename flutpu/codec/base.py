@@ -3,7 +3,7 @@
 The reference delegates encoding to off-the-shelf GStreamer encoders and only
 type-checks them (hype/src/hype/imp.rs:139-152: must be a VIDEO_ENCODER
 factory, or ``identity``). Here the framework owns its encoders: subclasses
-implement ``encode_frame`` (and usually batch whole GOPs to the TPU).
+implement ``encode_frame`` (and usually batch whole GOPs to the device).
 
 Contract pieces the hype bin relies on:
 - static ``sink``/``src`` pads with declared template caps (the bin
@@ -23,7 +23,6 @@ from ..core import (Buffer, BufferFlags, Caps, Element, Event, EventType,
 class VideoEncoder(Element):
     """Base class for video encoder elements."""
 
-    WARM_DEVICE = True
     SINK_CAPS = "video/x-raw"
     SRC_CAPS = ""  # subclasses must declare their bitstream caps
 

@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .. import native
+from .. import native, platform
 from . import jpeg_tables as T
 from .ops.colorspace import i420_to_rgb, ycbcr_to_rgb
 from .ops.dct import plane_idct
@@ -71,10 +71,10 @@ def coefs_to_rgb(yq: jax.Array, cbq: jax.Array, crq: jax.Array,
                  subsample: bool = True) -> jax.Array:
     """Quantized zigzag coefficient planes → (h, w, 3) uint8 RGB (device)."""
     def plane(q, qtab):
-        if jax.default_backend() == "cpu":
+        if not platform.dct_planar():
             blocks = zigzag_unflatten(q.astype(jnp.float32))
             return plane_idct(dequantize(blocks, qtab)) + 128.0
-        # planar idct: full-tile MXU matmuls (see dct.plane_dct_planar)
+        # planar idct (see dct.plane_dct_planar)
         from .ops.dct import plane_idct_planar, unblockize
         from .ops.quant import dequantize_planar
         cp = unblockize(zigzag_unflatten(q.astype(jnp.int32)))

@@ -66,7 +66,6 @@ class JpegDec(Element):
     """Decodes our baseline JFIF subset back to raw RGB frames."""
 
     FACTORY = "jpegdec"
-    WARM_DEVICE = True
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -118,7 +117,6 @@ class FvcDec(Element):
     frame)."""
 
     FACTORY = "fvcdec"
-    WARM_DEVICE = True
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)

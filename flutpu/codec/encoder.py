@@ -1,4 +1,4 @@
-"""tpujpegenc — the TPU intra-frame encoder element.
+"""tpujpegenc — the device intra-frame encoder element.
 
 VideoEncoder element running the flutpu.codec.jpeg path: frames accumulate
 into GOP batches on the host, each batch is one device dispatch
@@ -46,9 +46,8 @@ class TpuJpegEnc(VideoEncoder):
         PropertySpec("engine", "auto", "auto | device | host entropy coding"),
         PropertySpec("segmented", "auto", "segment bitstream layout: device "
                      "word-aligned segments + host compaction (byte-identical "
-                     "output). auto = on for the TPU Pallas engine (round-4 "
-                     "hardware A/B: 223 vs 192 fps), off on CPU; true/false "
-                     "force either layout"),
+                     "output). auto = the platform default "
+                     "(flutpu.platform); true/false force either layout"),
     ]
 
     def __init__(self, name: Optional[str] = None, **props):

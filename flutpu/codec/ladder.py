@@ -80,7 +80,6 @@ class FvcLadderEnc(Element):
     rung (src_0 = first rung in the list)."""
 
     FACTORY = "fvcladderenc"
-    WARM_DEVICE = True
     PROPERTIES = [
         PropertySpec("rungs", "1920x1080@85", "comma list of WxH@quality; "
                      "setting it (re)builds one src_%u pad per rung"),

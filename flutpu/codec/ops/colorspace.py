@@ -1,8 +1,8 @@
-"""Colorspace conversion ops — batched, fusable, MXU-friendly.
+"""Colorspace conversion ops — batched and fusable.
 
-RGB↔YCbCr (BT.601 full-range, the JPEG/JFIF convention) expressed as a 3x3
-matmul so XLA can fuse it with neighbouring ops and lower it onto the MXU for
-batched frames; 4:2:0 chroma down/upsampling via reshape-mean / repeat.
+RGB↔YCbCr (BT.601 full-range, the JPEG/JFIF convention) as channel-planar
+weighted sums that XLA fuses with neighbouring ops (and a 3x3 matmul on the
+decode side); 4:2:0 chroma down/upsampling via reshape-mean / repeat.
 
 Reference analog: the colorspace stage the reference delegates to
 GStreamer's videoconvert in front of its encoders (hype/README.md pipeline);
@@ -14,6 +14,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ... import platform
 
 # BT.601 full-range RGB -> YCbCr (JFIF)
 _RGB2YCBCR = np.array(
@@ -41,14 +43,10 @@ def ycbcr_from_channels(r: jax.Array, g: jax.Array, b: jax.Array):
 def rgb_to_ycbcr_planes(rgb: jax.Array):
     """[..., H, W, 3] uint8/float RGB → (y, cb, cr) float32 planes.
 
-    Channel-PLANAR linear combinations: a `(..., 3) @ (3, 3)` dot puts the
-    size-3 channel axis in the 128-wide lane dimension (measured ~11 ms of
-    a 15 ms coefs stage on the chip); three scalar-weighted plane sums fuse
-    into one elementwise pass instead. NOTE: merely READING an interleaved
-    [..., 3]-minor array already pays the (w, 3) tile padding (~42x lane
-    waste; convert measured 8.93 vs 0.21 ms/GOP on the v5e) — device-side
-    pipelines should carry channel planes end to end and use
-    ycbcr_from_channels / planes_to_i420 instead."""
+    Channel-PLANAR linear combinations: three scalar-weighted plane sums
+    fuse into one elementwise pass. Device-side pipelines carry channel
+    planes end to end and use ycbcr_from_channels / planes_to_i420, so
+    the interleaved [..., 3]-minor layout is never read on the device."""
     x = rgb.astype(jnp.float32)
     return ycbcr_from_channels(x[..., 0], x[..., 1], x[..., 2])
 
@@ -64,7 +62,7 @@ def ycbcr_to_rgb(ycbcr: jax.Array) -> jax.Array:
     """[..., H, W, 3] float YCbCr → float32 RGB in [0,255] (unclipped)."""
     x = ycbcr.astype(jnp.float32) - jnp.asarray(_CHROMA_OFFSET)
     m = jnp.asarray(_YCBCR2RGB.T)
-    return x @ m
+    return jnp.matmul(x, m, precision=platform.matmul_precision())
 
 
 def subsample_420(plane: jax.Array) -> jax.Array:

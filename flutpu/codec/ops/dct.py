@@ -1,9 +1,10 @@
-"""8x8 block DCT ops — expressed as matmuls so the MXU does the FLOPs.
+"""8x8 block DCT ops — expressed as batched matmuls.
 
 The 2-D DCT-II of an 8x8 block X is C @ X @ C^T with the orthonormal DCT
-matrix C; batched over all blocks of all frames in a GOP as one einsum, which
-XLA tiles onto the systolic array. This replaces the per-block scalar DCT
-loops a CPU encoder (reference's x264 delegate) would run.
+matrix C; batched over all blocks of all frames in a GOP as one einsum.
+This replaces the per-block scalar DCT loops a CPU encoder (reference's
+x264 delegate) would run. Every product runs at the platform's matmul
+precision (flutpu.platform.matmul_precision).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ... import platform
 
 
 @functools.lru_cache()
@@ -43,20 +46,22 @@ def unblockize(blocks: jax.Array) -> jax.Array:
 def dct2(blocks: jax.Array) -> jax.Array:
     """2-D DCT-II over the trailing (8, 8) axes, any leading batch shape."""
     c = jnp.asarray(dct_matrix(blocks.shape[-1]))
-    # C @ X @ C^T — two batched matmuls on the MXU
+    prec = platform.matmul_precision()
+    # C @ X @ C^T — two batched matmuls
     y = jnp.einsum("ij,...jk->...ik", c, blocks.astype(jnp.float32),
-                   preferred_element_type=jnp.float32)
+                   precision=prec, preferred_element_type=jnp.float32)
     return jnp.einsum("...ik,jk->...ij", y, c,
-                      preferred_element_type=jnp.float32)
+                      precision=prec, preferred_element_type=jnp.float32)
 
 
 def idct2(coefs: jax.Array) -> jax.Array:
     """Inverse 2-D DCT over trailing (8, 8) axes."""
     c = jnp.asarray(dct_matrix(coefs.shape[-1]))
+    prec = platform.matmul_precision()
     y = jnp.einsum("ji,...jk->...ik", c, coefs.astype(jnp.float32),
-                   preferred_element_type=jnp.float32)
+                   precision=prec, preferred_element_type=jnp.float32)
     return jnp.einsum("...ik,kj->...ij", y, c,
-                      preferred_element_type=jnp.float32)
+                      precision=prec, preferred_element_type=jnp.float32)
 
 
 def plane_dct(plane: jax.Array, block: int = 8) -> jax.Array:
@@ -73,22 +78,15 @@ def plane_idct(coefs: jax.Array) -> jax.Array:
 def _bd_dct_matrix(dim: int) -> np.ndarray:
     """(dim, dim) block-diagonal matrix with the 8x8 DCT on the diagonal.
 
-    MXU shape fix: the 8x8-contraction einsums of dct2 waste the 128x128
-    systolic array (contraction dim 8) and force (.., 8, 8) relayouts;
-    one dense dim x dim matmul against the block-diagonal keeps data in
-    plane layout with full MXU tiles. The extra multiplies are zeros —
-    free FLOPs on the MXU, and exact under f32 (x + 0 == x)."""
+    One dense dim x dim matmul against the block-diagonal keeps data in
+    plane layout (no (.., 8, 8) relayouts) at the cost of dim/8 times the
+    FLOPs of dct2; the extra multiplies are zeros, exact under f32
+    (x + 0 == x)."""
     c = dct_matrix(8)
     m = np.zeros((dim, dim), np.float32)
     for b in range(dim // 8):
         m[b * 8:(b + 1) * 8, b * 8:(b + 1) * 8] = c
     return m
-
-
-# bf16_3x precision: measured max |err| vs exact f32 is 0.009 on 1080p
-# DCT coefficients — orders of magnitude below any quantization step —
-# for ~5 ms/GOP less than the exact-f32 path (chip A/B, PERF.md)
-_PLANAR_PRECISION = jax.lax.Precision.HIGH
 
 
 def plane_dct_planar(plane: jax.Array) -> jax.Array:
@@ -99,11 +97,10 @@ def plane_dct_planar(plane: jax.Array) -> jax.Array:
     bh = jnp.asarray(_bd_dct_matrix(h))
     bw = jnp.asarray(_bd_dct_matrix(w))
     x = plane.astype(jnp.float32)
-    y = jnp.einsum("hk,...kw->...hw", bh, x,
-                   precision=_PLANAR_PRECISION,
+    prec = platform.matmul_precision()
+    y = jnp.einsum("hk,...kw->...hw", bh, x, precision=prec,
                    preferred_element_type=jnp.float32)
-    return jnp.einsum("...hw,vw->...hv", y, bw,
-                      precision=_PLANAR_PRECISION,
+    return jnp.einsum("...hw,vw->...hv", y, bw, precision=prec,
                       preferred_element_type=jnp.float32)
 
 
@@ -113,9 +110,8 @@ def plane_idct_planar(coefs: jax.Array) -> jax.Array:
     bh = jnp.asarray(_bd_dct_matrix(h))
     bw = jnp.asarray(_bd_dct_matrix(w))
     x = coefs.astype(jnp.float32)
-    y = jnp.einsum("kh,...kw->...hw", bh, x,
-                   precision=_PLANAR_PRECISION,
+    prec = platform.matmul_precision()
+    y = jnp.einsum("kh,...kw->...hw", bh, x, precision=prec,
                    preferred_element_type=jnp.float32)
-    return jnp.einsum("...hw,wv->...hv", y, bw,
-                      precision=_PLANAR_PRECISION,
+    return jnp.einsum("...hw,wv->...hv", y, bw, precision=prec,
                       preferred_element_type=jnp.float32)

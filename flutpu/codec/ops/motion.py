@@ -1,9 +1,9 @@
 """Motion estimation/compensation — block matching as device math.
 
-The TPU-native take on a codec's motion search: instead of per-macroblock
+The device take on a codec's motion search: instead of per-macroblock
 scalar loops, the full search evaluates every candidate displacement as a
 whole-frame vector op (roll → absolute difference → per-macroblock box
-reduction), keeping everything on the VPU with static shapes. Predictions
+reduction) with static shapes. Predictions
 use wrap-around semantics (jnp.roll) — a valid predictor as long as the
 decoder mirrors it, which ours does.
 
@@ -77,22 +77,9 @@ def motion_compensate(prev: jnp.ndarray, mv: jnp.ndarray,
 
     prev: (H, W); mv: (H/mb_l, W/mb_l, 2) on the LUMA grid — for chroma
     pass mb=8 and the same mv (vectors are halved internally when
-    mb != MB).
-
-    Two bit-identical formulations, chosen by backend at trace time:
-    masked rolls on TPU, flat gather elsewhere. The round-2 hardware A/B
-    (benches/ab_motion.py, v5e: rolls 17.4 fps vs gather 13.6 fps at
-    1080p intpel) showed dynamic gathers lose to candidate-enumeration
-    rolls on TPU — the exact opposite of the CPU result (gather 2.2x
-    faster), so the switch keys on jax.default_backend().
-    FLUTPU_MC_ROLLS=1/0 still forces either form.
+    mb != MB). One flat gather per output pixel.
     """
-    from ...core.env import env_flag
-    forced = env_flag("FLUTPU_MC_ROLLS")
-    use_rolls = (jax.default_backend() == "tpu" if forced is None
-                 else forced)
-    if use_rolls:
-        return _motion_compensate_rolls(prev, mv, search_range, mb)
+    del search_range   # the gather needs no candidate window
     h, w = prev.shape
     scale = MB // mb  # 1 luma, 2 chroma
     dy = mv[..., 0] if scale == 1 else mv[..., 0] // 2
@@ -107,50 +94,11 @@ def motion_compensate(prev: jnp.ndarray, mv: jnp.ndarray,
     return prev.reshape(-1)[sy * w + sx]
 
 
-def _motion_compensate_rolls(prev: jnp.ndarray, mv: jnp.ndarray,
-                             search_range: int, mb: int):
-    """Candidate-enumeration formulation (the TPU arm)."""
-    h, w = prev.shape
-    n = 2 * search_range + 1
-    scale = MB // mb
-
-    if scale != 1:
-        # chroma: the floor-halved vectors collapse the (2r+1)^2 luma
-        # candidates onto only ~(r+2)^2 DISTINCT shifts (r=7: 225 → 64
-        # rolls, a 3.5x cut of the chroma MC loops); select on the halved
-        # vector so the prediction is bit-identical
-        lo = -((search_range + 1) // 2)   # floor(-r / 2)
-        hi = search_range // 2
-        m = hi - lo + 1
-        dyh = mv[..., 0] // 2
-        dxh = mv[..., 1] // 2
-
-        def body_c(c, pred):
-            sdy = c // m + lo
-            sdx = c % m + lo
-            shifted = jnp.roll(prev, (sdy, sdx), axis=(0, 1))
-            sel = (dyh == sdy) & (dxh == sdx)
-            mask = jnp.repeat(jnp.repeat(sel, mb, axis=0), mb, axis=1)
-            return jnp.where(mask, shifted, pred)
-
-        return jax.lax.fori_loop(0, m * m, body_c, prev * 0)
-
-    def body(c, pred):
-        dy = c // n - search_range
-        dx = c % n - search_range
-        shifted = jnp.roll(prev, (dy, dx), axis=(0, 1))
-        sel = (mv[..., 0] == dy) & (mv[..., 1] == dx)  # (mbh, mbw)
-        mask = jnp.repeat(jnp.repeat(sel, mb, axis=0), mb, axis=1)
-        return jnp.where(mask, shifted, pred)
-
-    return jax.lax.fori_loop(0, n * n, body, prev * 0)
-
-
 # ---------------------------------------------------------------------------
-# Spatially-sharded (sequence-parallel) formulations — round 4.
+# Spatially-sharded (sequence-parallel) formulations.
 #
 # A frame row-striped over a mesh axis needs its neighbors' edge rows to
-# search/compensate near stripe boundaries. The halo travels over ICI as a
+# search/compensate near stripe boundaries. The halo travels as a
 # RING ppermute: stripe s receives stripe s-1's bottom r rows and stripe
 # s+1's top r rows, with ring wrap-around — which reproduces jnp.roll's
 # whole-frame wrap semantics EXACTLY, so per-pixel results match the
@@ -207,8 +155,8 @@ def motion_compensate_striped(prev_haloed: jnp.ndarray, mv: jnp.ndarray,
     """motion_compensate on a row stripe (candidate-enumeration form).
     ``prev_haloed`` carries ±halo rows; for chroma pass mb=8, the
     chroma-haloed plane with halo=(search_range+1)//2 and the LUMA-grid
-    vectors (halved internally). Bit-identical to the unsharded rolls
-    arm for this stripe's rows."""
+    vectors (halved internally). Bit-identical to the unsharded
+    motion_compensate for this stripe's rows."""
     hs = prev_haloed.shape[0] - 2 * halo
     scale = MB // mb
     if scale != 1:
@@ -381,80 +329,3 @@ def subpel_refine(cur_y: jnp.ndarray, prev_y: jnp.ndarray,
             best_cost = jnp.where(better, cost, best_cost)
             best_mv = jnp.where(better[..., None], 2 * base + off, best_mv)
     return best_mv
-
-
-@functools.partial(jax.jit, static_argnames=("search_range", "mb"))
-def motion_search_ssd_mxu(cur_y: jnp.ndarray, prev_y: jnp.ndarray,
-                          search_range: int = 7, mb: int = MB):
-    """Block matching as an MXU GEMM — the round-5 verdict's measured
-    reference formulation (NOT a product path; see the PERF.md roofline).
-
-    SSD expansion: argmin_c ||a - b_c||^2 = argmin_c (||b_c||^2 - 2 a.b_c)
-    (||a||^2 is candidate-independent). The cross term rides the MXU as a
-    true GEMM per macroblock row: A_y (mbw, mb*mb) bf16 x B_y' (mb*mb,
-    n^2*mbw) bf16 -> f32, where B_y' is the im2col of the shifted-
-    candidate basis (every candidate patch of every block in the row).
-    Only the block-diagonal (x == x') of the (mbw, n^2, mbw) product is
-    wanted: the GEMM computes mbw times the useful FLOPs (the
-    "one big dot" of the verdict prescription has no smaller dense
-    form — there is no operand shared across blocks or candidates, so a
-    GEMM must either replicate data ~n^2x (im2col) or compute ~mbw x
-    dense waste; this arm does both halves honestly and is measured by
-    benches/ab_motion.py).
-
-    Selection metric is SSD (not the product SAD), bf16 cross term: mv
-    fields are NOT bit-identical to motion_search — this function exists
-    to measure the MXU formulation's speed ceiling, per the verdict.
-    Candidate order (dy-major) and first-win ties match motion_search.
-    """
-    h, w = cur_y.shape
-    rng = search_range
-    n = 2 * rng + 1
-    mbh, mbw = h // mb, w // mb
-    k = mb * mb
-
-    prevp = jnp.pad(prev_y.astype(jnp.float32), ((rng, rng), (rng, rng)),
-                    mode="wrap")
-    # per-mb-row reference bands: rows [y*mb - rng, y*mb + mb + rng)
-    idx = (jnp.arange(mbh) * mb)[:, None] + jnp.arange(mb + 2 * rng)[None]
-    bands = prevp[idx]                     # (mbh, mb+2r, w+2r)
-    # A blocks: (mbh, mbw, k)
-    ablk = (cur_y.astype(jnp.float32)
-            .reshape(mbh, mb, mbw, mb).transpose(0, 2, 1, 3)
-            .reshape(mbh, mbw, k))
-
-    def per_band(carry, xs):
-        band, a = xs                       # (mb+2r, w+2r), (mbw, k)
-        # im2col the shifted-candidate basis with static slices. Sign
-        # convention: motion_search's candidate (dy,dx) is
-        # roll(prev, (dy,dx)) — output pixel p sources prev[p - (dy,dx)]
-        # — so the patch of block x is band[r-dy : r-dy+mb,
-        # r-dx+16x : r-dx+16x+mb]
-        pats = []
-        for dy in range(-rng, rng + 1):
-            rowslab = band[rng - dy:rng - dy + mb, :]       # (mb, w+2r)
-            for dx in range(-rng, rng + 1):
-                sl = rowslab[:, rng - dx:rng - dx + w]      # (mb, w)
-                pats.append(sl.reshape(mb, mbw, mb)
-                            .transpose(1, 0, 2).reshape(mbw, k))
-        basis = jnp.stack(pats)            # (n*n, mbw, k)
-        # ||b_c||^2 per (block, candidate) — exact f32, VPU
-        bb = (basis * basis).sum(axis=-1).T            # (mbw, n*n)
-        # cross term: ONE GEMM (mbw, k) x (k, n*n*mbw) on the MXU (bf16
-        # in, f32 out); keep only the block diagonal
-        dense = jax.lax.dot_general(
-            a.astype(jnp.bfloat16),
-            basis.astype(jnp.bfloat16).transpose(2, 0, 1).reshape(
-                k, n * n * mbw),
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)        # (mbw, n*n*mbw)
-        xs_i = jnp.arange(mbw)
-        cross = dense.reshape(mbw, n * n, mbw)[
-            xs_i[:, None], jnp.arange(n * n)[None, :], xs_i[:, None]]
-        cost = bb - 2.0 * cross
-        c = jnp.argmin(cost, axis=-1).astype(jnp.int32)   # first-win ties
-        mv_row = jnp.stack([c // n - rng, c % n - rng], axis=-1)
-        return carry, mv_row
-
-    _, mv = jax.lax.scan(per_band, 0, (bands, ablk))
-    return mv                                # (mbh, mbw, 2) int32

@@ -53,12 +53,9 @@ def gradient_ball_planes(h: int, w: int, n: int, start: jnp.ndarray):
     planes, each (n, h, w) — value-identical to slicing the interleaved
     frames (same per-channel math, clip, cast).
 
-    Why this exists (measured, v5e): a materialized (n, h, w, 3) uint8
-    array tiles its last two dims as (w, 3) — 3 of 128 lanes carry data,
-    so every consumer pays ~42x the vector work. The fused
-    convert stage measured 8.93 ms/GOP reading the interleaved form vs
-    0.21 ms/GOP reading planes. Device pipelines should stay planar from
-    the source onward; the interleaved variant remains as the host-API
-    analog (video frames arrive interleaved from real sources)."""
+    Device pipelines stay planar from the source onward, so the
+    interleaved (n, h, w, 3) array never exists on the device; the
+    interleaved variant remains as the host-API analog (video frames
+    arrive interleaved from real sources)."""
     r, g, b = _gradient_ball_channels(h, w, n, start)
     return tuple(jnp.clip(p, 0, 255).astype(jnp.uint8) for p in (r, g, b))

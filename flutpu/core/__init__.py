@@ -1,6 +1,6 @@
 """flutpu.core — host-side streaming dataflow framework.
 
-The GStreamer-role layer of the TPU-native rebuild: elements, pads, caps,
+The GStreamer-role layer of the rebuild: elements, pads, caps,
 buffers, events, bins, queues, a registry with a textual pipeline language,
 and a push/pull test harness. All pixel math lives in flutpu.codec /
 flutpu.ttml device kernels; this layer owns topology, ordering and time.

@@ -3,7 +3,7 @@
 Rebuild of the GstBuffer contract the reference depends on: pts/dts/duration/
 offset timestamps (hype keys chunking off ``offset``, see reference
 hype/src/scenedetector/imp.rs:141-161), flag bits (DELTA_UNIT/HEADER), and an
-opaque payload. TPU-native twist: the payload may be host bytes, a numpy array,
+opaque payload. Device-native twist: the payload may be host bytes, a numpy array,
 or a device-resident ``jax.Array`` — elements declare which they accept via
 caps, and device arrays flow through pads without forced host copies.
 """

@@ -1,6 +1,6 @@
 """Caps — typed media capability structures with negotiation semantics.
 
-TPU-native rebuild of the GStreamer caps model the reference relies on for
+A rebuild of the GStreamer caps model the reference relies on for
 element linking (see reference plugins/ttml/gstttmlbase.c caps negotiation and
 hype/src/hype/imp.rs:34-63 which intersects encoder caps into a capsfilter).
 Not a port: a small, functional structure model sufficient for the framework's

@@ -1,10 +1,8 @@
-"""Environment flag parsing shared by the A/B and formulation overrides.
+"""Environment flag parsing for the overrides (``FLUTPU_SEGMENTED``).
 
 One convention everywhere: unset → the caller's default; ``0`` / ``false``
-/ ``no`` / empty → False; anything else → True. Round-4 review found
-``FLUTPU_SEARCH_DYGRID=0`` silently ENABLING the dy-grid arm (string
-truthiness), which would have made a hardware A/B compare the same arm
-against itself.
+/ ``no`` / empty → False; anything else → True — so ``FLAG=0`` can never
+enable an arm through string truthiness.
 """
 
 import os

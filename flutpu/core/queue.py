@@ -4,7 +4,7 @@ This is the framework's async boundary: upstream's thread enqueues, the
 queue's own streaming thread dequeues and pushes downstream. Reference
 analog: GStreamer ``queue`` elements giving each hype encoder branch its own
 streaming thread (hype/src/outputselector/imp.rs:170-175, depth
-SCENE_BUFFER_SIZE*2 = 40 buffers). On the TPU build this same boundary is
+SCENE_BUFFER_SIZE*2 = 40 buffers). On the device build this same boundary is
 where host→device dispatch overlap happens.
 """
 

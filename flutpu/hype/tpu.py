@@ -2,11 +2,11 @@
 
 Where the ``hype`` bin reproduces the reference's thread-per-branch scatter/
 gather (one GStreamer streaming thread per encoder), ``tpuhype`` is the
-TPU-first expression of the same contract: C GOP chunks are batched into one
-(C, F, H, W, 3) array, encoded by a single SPMD dispatch one-chunk-per-chip
-over the ``chunk`` mesh axis (flutpu.parallel.gop), and entropy-coded on the
-host in strict chunk order by a thread pool (the ordered-gather role of the
-reference's scenecollector, reference hype/src/scenecollector/imp.rs:71-99).
+device-mesh expression of the same contract: C GOP chunks are batched into
+one (C, F, H, W, 3) array, encoded by a single SPMD dispatch one chunk per
+device over the ``chunk`` mesh axis (flutpu.parallel.gop), and emitted in
+strict chunk order (the ordered-gather role of the reference's
+scenecollector, reference hype/src/scenecollector/imp.rs:71-99).
 
 Latency note: batching C chunks trades latency for throughput exactly like
 the reference's round-robin over C branches — output stalls at most
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import platform
 from ..codec.base import VideoEncoder
 from ..codec.jpeg import (JpegEncoder, encode_scan, jpeg_headers)
 from ..core import (Buffer, Caps, PropertySpec, register)
@@ -36,7 +37,7 @@ def _pad_to(x: int, m: int) -> int:
 
 @register
 class TpuHype(VideoEncoder):
-    """GOP-parallel MJPEG encoder as one SPMD dispatch, one chunk per chip
+    """GOP-parallel MJPEG encoder as one SPMD dispatch, one chunk per device
     over a device mesh."""
 
     FACTORY = "tpuhype"
@@ -47,11 +48,11 @@ class TpuHype(VideoEncoder):
         PropertySpec("quality", 85),
         PropertySpec("chunks", 0, "parallel chunks (0 = all local devices)"),
         PropertySpec("spatial", 1, "row-stripe each frame across this many "
-                                   "chips (chunk x spatial mesh — for frame "
-                                   "sizes too heavy for one chip, e.g. 4K). "
-                                   "Works for codec=fvc/fvc-motion too: "
-                                   "motion exchanges halo rows with ring "
-                                   "ppermutes over ICI and psum-reduces the "
+                                   "devices (chunk x spatial mesh — for "
+                                   "frame sizes too heavy for one device, "
+                                   "e.g. 4K). Works for codec=fvc/fvc-motion "
+                                   "too: motion exchanges halo rows with "
+                                   "ring ppermutes and psum-reduces the "
                                    "frame-type decision (integer-pel full "
                                    "search); streams carry the coded size "
                                    "explicitly (header flags bit 4)"),
@@ -67,9 +68,8 @@ class TpuHype(VideoEncoder):
         PropertySpec("search-range", 7, "fvc-motion full-search window"),
         PropertySpec("search", "full", "full | hier fvc-motion estimation"),
         PropertySpec("subpel", False, "half-pel fvc-motion refinement "
-                                      "(opt-in quality knob: ~8% smaller "
-                                      "streams, 2.3x slower on TPU — the "
-                                      "round-2 hardware A/B)"),
+                                      "(opt-in quality knob: smaller "
+                                      "streams, slower search)"),
         PropertySpec("bframes", 0, "fvc-motion B frames between anchors "
                                    "(chunk-local bidirectional prediction; "
                                    "composes with spatial striping, not "
@@ -157,9 +157,8 @@ class TpuHype(VideoEncoder):
             self._flush_fvc(batch, chunks, n, h, w, jenc, mesh, spatial,
                             gop, motion=codec == "fvc-motion")
             return
-        # channel-planar upload: same bytes, tile-dense on device, and the
-        # per-shard encode takes the fused Pallas front end where the
-        # shape fits (parallel.gop._encode_block_planes)
+        # channel-planar upload: same bytes, and the interleaved layout
+        # never exists on the device (parallel.gop._encode_block_planes)
         yq, cbq, crq = encode_chunks_sharded(
             tuple(jnp.asarray(np.ascontiguousarray(chunks[..., c]))
                   for c in range(3)),
@@ -254,9 +253,9 @@ class TpuHype(VideoEncoder):
         cflags = 1 | (2 if motion else 0)  # 4:2:0 | compressed mvs
         if motion and subpel:
             cflags |= 4  # half-pel vectors
-        if motion and jax.default_backend() != "cpu":
-            cflags |= 8  # planar in-loop recon (fvc_mc_encode_chunk's
-            #              backend default inside fvc_chunks_sharded)
+        if motion and platform.dct_planar():
+            cflags |= 8  # planar in-loop recon: the platform's formulation,
+            #              which fvc_chunks_sharded's encode used
         ph, pw = chunks.shape[2], chunks.shape[3]
         # spatial striping pads H to 16*stripes — beyond the minimum
         # macroblock padding the decoder derives from (h, w), so the
@@ -337,12 +336,12 @@ class TpuHype(VideoEncoder):
                                     offset=src.offset))
 
     def _entropy(self, jenc, yq, cbq, crq, hdr):
-        """Entropy-code all chunk frames. On accelerators the bits pack on
-        device (only compressed data crosses the link); the host coder is
-        the CPU fallback. ``jenc.segmented`` selects the round-4 segment
-        layout (device word-aligned segments + host compaction)."""
+        """Entropy-code all chunk frames. On the card the bits pack on the
+        device (only compressed data is fetched); the host coder serves
+        the CPU. ``jenc.segmented`` selects the segment layout (device
+        word-aligned segments + host compaction)."""
         c, f = yq.shape[0], yq.shape[1]
-        if jenc.use_pallas:
+        if platform.device_entropy():
             from ..codec.jpeg import _pad_to
             from ..codec.ops.entropy import (compact_segments_finalize,
                                              encode_gop_scans_combined,
@@ -363,7 +362,7 @@ class TpuHype(VideoEncoder):
                         cbq.reshape(c * f, *cbq.shape[2:]),
                         crq.reshape(c * f, *crq.shape[2:]),
                         layout=layout, prefix_words=p,
-                        seg_words=sw_w), p, sw_w
+                        seg_words=sw_w, use_pallas=jenc.use_pallas), p, sw_w
 
                 # capacity growth compiles off the streaming thread and is
                 # adopted once ready (JpegEncoder._maybe_adopt_or_warm)
@@ -388,7 +387,8 @@ class TpuHype(VideoEncoder):
                 yq.reshape(c * f, *yq.shape[2:]),
                 cbq.reshape(c * f, *cbq.shape[2:]),
                 crq.reshape(c * f, *crq.shape[2:]),
-                layout=layout, prefix_words=prefix, use_pallas=True)
+                layout=layout, prefix_words=prefix,
+                use_pallas=jenc.use_pallas)
             arr = np.asarray(combined)
             bits = arr[:, 0].astype(np.int64)
             if (bits <= prefix * 32).all():

@@ -10,12 +10,12 @@ new one, retargets the src ghost pad, syncs state (:149-173), and emits
 ``notify::element`` (:176-191). A None element means passthrough through
 the anchor.
 
-TPU angle: before any dataflow block is installed, the incoming element's
+Device angle: before any dataflow block is installed, the incoming element's
 device programs are PRE-WARMED against the currently negotiated caps
 (``Element.prewarm``) — the stream keeps flowing through the old element
 while the new one compiles, so the observable swap gap stays bounded by
 queue depth (the reference's brief-block contract) rather than paying a
-first-buffer jit compile (minutes on remote links) on the streaming
+first-buffer jit compile on the streaming
 thread. The swap machinery itself stays host-side and data-flow
 synchronized, so in-flight device work of the old stage drains before
 teardown.

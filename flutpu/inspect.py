@@ -52,10 +52,6 @@ def _markdown(regs) -> str:
 
 
 def main(argv=None) -> int:
-    # inspection constructs elements but never streams: skip the
-    # accelerator warmup (a dead remote link would hang the listing)
-    from .core.devwarm import skip_warmup
-    skip_warmup()
     args = argv if argv is not None else sys.argv[1:]
     regs = factories()
     if args and args[0] == "--markdown":

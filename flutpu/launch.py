@@ -29,6 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=0.0,
                     help="stop after N seconds (0 = run to EOS)")
     args = ap.parse_args(argv)
+    from .platform import enable_compile_cache
+    enable_compile_cache()
 
     desc = " ".join(args.pipeline)
     try:

@@ -5,9 +5,10 @@ chunks (one per chip along the ``chunk`` mesh axis, optionally row-striped
 along ``spatial``) goes through convert → 4:2:0 → DCT → quantize → zigzag as
 one jitted shard_map. No collectives are needed for the encode itself —
 chunk independence is the design (forced keyframes at chunk starts, see
-flutpu.hype) — so the program scales linearly over ICI and wall-clock equals
-the slowest chunk, matching the reference's structural property across chips
-instead of threads (reference hype/src/outputselector round-robin scatter).
+flutpu.hype) — so the program scales linearly across devices and wall-clock
+equals the slowest chunk, matching the reference's structural property across
+devices instead of threads (reference hype/src/outputselector round-robin
+scatter).
 """
 
 from __future__ import annotations
@@ -16,41 +17,26 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from ..codec.ops.colorspace import rgb_to_i420
-from ..codec.ops.dct import blockize, plane_dct, plane_dct_planar
-from ..codec.ops.quant import quantize, quantize_planar, zigzag_flatten
 
 
 def _encode_block(frames: jax.Array, qy: jax.Array, qc: jax.Array):
     """Local (per-shard) encode: (..., H, W, 3) uint8 → zigzagged int16
-    coefficient planes. H, W must be multiples of 16. Planar DCT keeps the
-    per-shard matmuls full-tile on the MXU (dct.plane_dct_planar); on CPU
-    meshes the 8x8 einsum form is cheaper (17x fewer FLOPs)."""
+    coefficient planes. H, W must be multiples of 16. The DCT formulation
+    is the platform's (jpeg._plane_to_zz)."""
+    from ..codec.jpeg import _plane_to_zz
     x = frames.astype(jnp.float32)
     y, cb, cr = rgb_to_i420(x)
-
-    def q(plane, qtab):
-        if jax.default_backend() == "cpu":
-            return zigzag_flatten(
-                quantize(plane_dct(plane - 128.0), qtab)).astype(jnp.int16)
-        qq = quantize_planar(plane_dct_planar(plane - 128.0), qtab)
-        return zigzag_flatten(blockize(qq)).astype(jnp.int16)
-
-    return q(y, qy), q(cb, qc), q(cr, qc)
+    return _plane_to_zz(y, qy), _plane_to_zz(cb, qc), _plane_to_zz(cr, qc)
 
 
 def _encode_block_planes(r: jax.Array, g: jax.Array, b: jax.Array,
                          qy: jax.Array, qc: jax.Array):
-    """Channel-planar _encode_block: (..., F, H, W) uint8 per channel —
-    takes the fused Pallas front end (jpeg._planes_front_end) where the
-    shape fits (round-4 hardware A/B), the XLA formulation otherwise
-    (CPU meshes, odd stripe shapes)."""
+    """Channel-planar _encode_block: (..., F, H, W) uint8 per channel,
+    through the planar front end (jpeg._planes_front_end)."""
     from ..codec.jpeg import _planes_front_end
     h, w = r.shape[-2], r.shape[-1]
 
@@ -72,9 +58,8 @@ def encode_chunks_sharded(frames, qy: jax.Array, qc: jax.Array,
     C is sharded over the ``chunk`` mesh axis; with ``spatial`` True, H is
     additionally striped over the ``spatial`` axis (stripe height must stay a
     multiple of 16 so 4:2:0 macroblocks remain shard-local → zero halo).
-    Planar input is preferred on TPU: it skips the interleaved layout's
-    (w, 3) tile-padding tax AND takes the fused Pallas front end per
-    shard (jpeg._planes_front_end — round-4 hardware A/B).
+    Planar input is preferred: the interleaved layout never exists on the
+    device.
     """
     planar = isinstance(frames, (tuple, list))
     if spatial:
@@ -87,13 +72,10 @@ def encode_chunks_sharded(frames, qy: jax.Array, qc: jax.Array,
         out_spec = (P("chunk", None, None),) * 3
 
     if planar:
-        # check_vma=False: the kernel arm runs pallas_call inside the
-        # sharded region and pallas outputs carry no varying-manual-axes
-        # annotation (the round-3 motion-path lesson)
         fn = shard_map(
             _encode_block_planes, mesh=mesh,
             in_specs=(plane_spec,) * 3 + (P(), P()),
-            out_specs=out_spec, check_vma=False)
+            out_specs=out_spec)
         r, g, b = frames
         return fn(r, g, b, qy, qc)
     fn = shard_map(
@@ -117,25 +99,26 @@ def fvc_chunks_sharded(frames, qy: jax.Array, qc: jax.Array,
                        subpel: bool = False, spatial: bool = False,
                        bframes: int = 0, qy_b=None, qc_b=None):
     """FVC GOP coding as an SPMD program: (C, F, H, W, 3) uint8 — or a
-    channel-planar (r, g, b) tuple of (C, F, H, W) planes (preferred on
-    TPU: tile-dense, and v1 takes the fused Pallas front end per shard) —
+    channel-planar (r, g, b) tuple of (C, F, H, W) planes (preferred) —
     C sharded over the ``chunk`` mesh axis, each shard running an
     independent codec instance (frame 0 of every chunk is an I frame —
     the forced-keyframe contract that makes chunks independent, reference
     hype/src/outputselector/imp.rs:39-43). Zero collectives in the chunk
     direction.
 
-    ``spatial`` (round 4, motion mode): additionally row-stripe each
+    ``spatial`` (motion mode): additionally row-stripe each
     frame over the ``spatial`` mesh axis — the sequence-parallel path for
     a SINGLE high-resolution stream whose latency budget cannot wait for
-    a whole chunk per chip. Motion search/compensation exchange ±r edge
-    rows with ring-neighbor ppermutes over ICI and the frame-type
+    a whole chunk per device. Motion search/compensation exchange ±r edge
+    rows with ring-neighbor ppermutes (NCCL on the card) and the frame-type
     decision reduces via psum (ops/motion.py striped formulations,
     bit-identical per pixel to the unsharded codec). Stripe height must
     be a multiple of 16.
 
     Returns (ry, rcb, rcr) int16 residual planes, plus mvs int8 and
-    itypes int8 when ``motion`` (the v2 hybrid loop per chunk). With
+    itypes int8 when ``motion`` (the v2 hybrid loop per chunk). The
+    in-loop DCT formulation is the platform's (flutpu.platform.dct_planar),
+    which the caller writes into the header (flags bit 3). With
     ``bframes`` > 0 (motion mode) each chunk runs the bidirectional
     structure instead and the return is
     (ry, rcb, rcr, fwd, bwd, modes, ftypes) — zero collectives in the
@@ -195,10 +178,6 @@ def fvc_chunks_sharded(frames, qy: jax.Array, qc: jax.Array,
                 n_spatial=n_sp)
         return jax.vmap(one)(*(fr if planar else (fr,)))
 
-    # check_vma=False: the motion arm runs pallas_call (search+predict,
-    # chroma MC) inside the sharded region, and pallas output
-    # ShapeDtypeStructs carry no varying-manual-axes annotation — the
-    # default check_vma=True rejects them on TPU (measured round 3).
     # Per-chunk codecs touch no cross-shard state the specs don't name.
     if spatial:
         in_spec = P("chunk", None, "spatial", None, None)
@@ -229,12 +208,12 @@ def fvc_chunks_sharded(frames, qy: jax.Array, qc: jax.Array,
         fn = shard_map(
             local_mc_b, mesh=mesh,
             in_specs=frame_specs + (P(), P(), P(), P()),
-            out_specs=out_specs_b, check_vma=False)
+            out_specs=out_specs_b)
         return fn(*frame_args, qy, qc,
                   qy if qy_b is None else qy_b,
                   qc if qc_b is None else qc_b)
     fn = shard_map(
         local_mc if motion else local_v1, mesh=mesh,
         in_specs=frame_specs + (P(), P()),
-        out_specs=out_specs, check_vma=False)
+        out_specs=out_specs)
     return fn(*frame_args, qy, qc)

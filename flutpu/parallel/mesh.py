@@ -1,13 +1,13 @@
-"""Device mesh utilities — the ICI-scaling layer.
+"""Device mesh utilities — the multi-device scaling layer.
 
 The reference's only parallelism is GOP-chunk data parallelism over CPU
-threads (SURVEY §2.5). Here the same strategy is expressed the TPU way: a
-jax.sharding.Mesh with a ``chunk`` axis (one GOP chunk per chip) and an
-optional ``spatial`` axis (rows of a frame across chips — the sequence/
+threads (SURVEY §2.5). Here the same strategy is expressed as a device mesh: a
+jax.sharding.Mesh with a ``chunk`` axis (one GOP chunk per device) and an
+optional ``spatial`` axis (rows of a frame across devices — the sequence/
 tensor-parallel analog for very large frames). Chunk independence is
 guaranteed by forced keyframes, so the encode step needs **zero collectives**
 — wall-clock = slowest single chunk, exactly the reference's structural
-property (BASELINE.md), but across chips instead of threads.
+property (BASELINE.md), but across devices instead of threads.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def make_chunk_mesh(n_devices: Optional[int] = None,
 def make_chunk_spatial_mesh(chunk: int, spatial: int,
                             devices: Optional[Sequence] = None) -> Mesh:
     """2-D mesh: GOP chunks × frame-row stripes. Row stripes shard the
-    convert/DCT work of one chunk across ``spatial`` chips when a single
-    frame is too large for one chip's HBM/step budget."""
+    convert/DCT work of one chunk across ``spatial`` devices when a single
+    frame is too large for one device's memory/step budget."""
     if devices is None:
         devices = jax.devices()
     n = chunk * spatial

@@ -1,7 +1,9 @@
-"""Multi-host scaling helpers — DCN for chunk scatter, ICI inside slices.
+"""Multi-host scaling helpers — the network for chunk scatter, the
+intra-host links (NVLink) inside a host.
 
-SURVEY §5.8 contract: bulk pixel movement rides ICI within a slice; DCN is
-only used for multi-host scatter of input chunks and gather of bitstreams.
+SURVEY §5.8 contract: bulk pixel movement stays inside a host; the network
+is only used for multi-host scatter of input chunks and gather of
+bitstreams.
 Because chunk encode needs zero collectives, the multi-host topology is
 embarrassingly simple: each host feeds the chunks owned by its local
 devices and stitches only its own outputs; one designated host (or the

@@ -1,6 +1,6 @@
 """Glyph/run atlas — device-resident texture cache for the TTML renderer.
 
-The TPU-first answer to the reference's glyph-by-glyph cairo drawing
+The device-first answer to the reference's glyph-by-glyph cairo drawing
 (plugins/ttml/gstttmlrender.c:941-1176 show_layout): the host shapes and
 rasterizes each unique styled text run ONCE (PIL/FreeType alpha map), the
 alpha map is split into fixed-size tiles and uploaded into a device atlas

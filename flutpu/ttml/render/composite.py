@@ -70,8 +70,7 @@ def overlay_on_planes(r: jax.Array, g: jax.Array, b: jax.Array,
 
     Per-channel math identical to overlay_on_frames (same blend
     expression, clip, cast), so the two formulations are byte-identical —
-    but the frames never enter the interleaved [..., 3]-minor layout whose
-    (w, 3) tile padding costs ~42x lane waste on TPU (see
+    but the frames never enter the interleaved [..., 3]-minor layout (see
     colorspace.rgb_to_ycbcr_planes). The fused encode+burn-in GOP program
     uses this form."""
     a = overlay_bgra[..., 3].astype(jnp.float32) / 255.0

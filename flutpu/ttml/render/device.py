@@ -1,7 +1,7 @@
 """Device instance compositor — renders a TTML interval from a z-ordered
 instance stream against the glyph atlas, entirely on the accelerator.
 
-TPU-first replacement for the reference's per-glyph cairo drawing loop
+Device-first replacement for the reference's per-glyph cairo drawing loop
 (plugins/ttml/gstttmlrender.c show_layout :941-1176 and show_regions
 :1235-1385): instead of host-side pixel blending, the host emits a compact
 instance table (tile index, destination, size, color, clip rect) and one

@@ -1,6 +1,6 @@
 """Host-side text shaping: fonts and text-run rasterization.
 
-The TPU-first split of the reference's pango/cairo stack
+The host/device split of the reference's pango/cairo stack
 (gstttmlrender.c:591-1176): line breaking, font selection and glyph
 rasterization are deeply host-bound (FreeType via PIL here, pango there);
 everything per-pixel after the alpha maps — coloring, decorations,

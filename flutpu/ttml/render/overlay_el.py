@@ -25,7 +25,6 @@ class OverlayCompositor(Element):
     """Burns a sparse BGRA overlay stream into raw video frames."""
 
     FACTORY = "overlaycompositor"
-    WARM_DEVICE = True
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)

@@ -41,7 +41,6 @@ class TTMLRender(TTMLBase):
     device compositing)."""
 
     FACTORY = "ttmlrender"
-    WARM_DEVICE = True
 
     PROPERTIES = [
         PropertySpec("default-font-family", "default"),

@@ -1,10 +1,10 @@
-// flubitstream — host-side entropy coding for the TPU codec path.
+// flubitstream — host-side entropy coding for the device codec path.
 //
-// The device (JAX/Pallas) produces zigzagged, quantized DCT coefficients as
+// The device (JAX) produces zigzagged, quantized DCT coefficients as
 // int16 arrays; this module turns them into standard JPEG entropy-coded
 // scans (Huffman, byte-stuffed) and FVC (flu video codec) frame payloads.
 // Entropy coding is inherently serial per scan, so it lives on the host in
-// C++ — the TPU-native analog of the reference's native encoder delegates.
+// C++ — the analog of the reference's native encoder delegates.
 //
 // Built as a plain C ABI shared library; Python binds via ctypes
 // (flutpu/native.py). No GIL interaction: pure buffers in/out, safe to call

@@ -1,6 +1,6 @@
 // flutls — minimal TLS client transport over a pre-connected socket.
 //
-// TPU-image constraint: OpenSSL 3 runtime libraries (libssl.so.3 /
+// Build-image constraint: OpenSSL 3 runtime libraries (libssl.so.3 /
 // libcrypto.so.3) are present but the development headers are not, and
 // nothing may be installed. So this binds the small, ABI-stable slice of
 // the OpenSSL 3 API we need via dlopen/dlsym with our own prototypes —

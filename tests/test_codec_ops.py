@@ -225,198 +225,3 @@ def test_planar_quantize_matches_blockized():
     a = np.asarray(quantize(blockize(jnp.asarray(coefs_plane)), qt))
     b = np.asarray(blockize(quantize_planar(jnp.asarray(coefs_plane), qt)))
     np.testing.assert_array_equal(a, b)
-
-
-def test_motion_pallas_kernel_matches_xla(monkeypatch):
-    """Interpret-mode fused search+predict kernel is bit-identical to
-    motion_search + motion_compensate across shapes and shifts."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import motion_compensate, motion_search
-    from flutpu.codec.ops.motion_pallas import motion_search_mc_pallas
-    rng = np.random.default_rng(2)
-    for (h, w) in ((64, 128), (48, 256)):
-        prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
-        cur = np.roll(prev, (rng.integers(-7, 8), rng.integers(-7, 8)),
-                      axis=(0, 1)) + \
-            rng.normal(0, 2, (h, w)).astype(np.float32)
-        mv_ref = np.asarray(motion_search(jnp.asarray(cur),
-                                          jnp.asarray(prev),
-                                          search_range=7))
-        pred_ref = np.asarray(motion_compensate(jnp.asarray(prev),
-                                                jnp.asarray(mv_ref),
-                                                search_range=7))
-        mv, pred = motion_search_mc_pallas(
-            jnp.asarray(cur), jnp.asarray(prev), search_range=7,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(mv), mv_ref)
-        np.testing.assert_array_equal(np.asarray(pred), pred_ref)
-
-
-def test_motion_dygrid_pallas_matches_xla():
-    """Round-4 dy-grid restructure of the search+predict kernel (the
-    sublane shift resolved by an affine row gather + a sequential grid
-    dim; one lane roll per candidate) is bit-identical to
-    motion_search + motion_compensate, including non-128-multiple
-    widths."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import motion_compensate, motion_search
-    from flutpu.codec.ops.motion_pallas import motion_search_mc_dygrid_pallas
-    rng = np.random.default_rng(7)
-    for (h, w) in ((64, 128), (48, 256), (64, 96)):
-        prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
-        cur = np.roll(prev, (rng.integers(-7, 8), rng.integers(-7, 8)),
-                      axis=(0, 1)) + \
-            rng.normal(0, 2, (h, w)).astype(np.float32)
-        mv_ref = np.asarray(motion_search(jnp.asarray(cur),
-                                          jnp.asarray(prev),
-                                          search_range=7))
-        pred_ref = np.asarray(motion_compensate(jnp.asarray(prev),
-                                                jnp.asarray(mv_ref),
-                                                search_range=7))
-        mv, pred = motion_search_mc_dygrid_pallas(
-            jnp.asarray(cur), jnp.asarray(prev), search_range=7,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(mv), mv_ref)
-        np.testing.assert_array_equal(np.asarray(pred), pred_ref)
-
-
-def test_motion_dxmajor_pallas_matches_xla():
-    """Round-5 dy-major/static-dx restructure (sublane roll hoisted out
-    of the candidate loop, lane rolls unrolled to compile-time shifts)
-    is bit-identical to motion_search + motion_compensate, including
-    non-128-multiple widths."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import motion_compensate, motion_search
-    from flutpu.codec.ops.motion_pallas import motion_search_mc_dxmajor_pallas
-    rng = np.random.default_rng(11)
-    for (h, w) in ((64, 128), (48, 256), (64, 96)):
-        prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
-        cur = np.roll(prev, (rng.integers(-7, 8), rng.integers(-7, 8)),
-                      axis=(0, 1)) + \
-            rng.normal(0, 2, (h, w)).astype(np.float32)
-        mv_ref = np.asarray(motion_search(jnp.asarray(cur),
-                                          jnp.asarray(prev),
-                                          search_range=7))
-        pred_ref = np.asarray(motion_compensate(jnp.asarray(prev),
-                                                jnp.asarray(mv_ref),
-                                                search_range=7))
-        mv, pred = motion_search_mc_dxmajor_pallas(
-            jnp.asarray(cur), jnp.asarray(prev), search_range=7,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(mv), mv_ref)
-        np.testing.assert_array_equal(np.asarray(pred), pred_ref)
-
-
-def test_chroma_mc_pallas_matches_xla():
-    """Interpret-mode fused two-plane chroma MC kernel is bit-identical
-    to motion_compensate(..., mb=8) across shapes and search ranges."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import motion_compensate
-    from flutpu.codec.ops.motion_pallas import chroma_mc_pallas
-    rng = np.random.default_rng(9)
-    for (hc, wc, r) in ((64, 128, 7), (72, 192, 7), (64, 128, 5)):
-        cb = jnp.asarray(rng.normal(128, 30, (hc, wc)).astype(np.float32))
-        cr = jnp.asarray(rng.normal(128, 30, (hc, wc)).astype(np.float32))
-        mv = jnp.asarray(rng.integers(-r, r + 1, (hc // 8, wc // 8, 2))
-                         .astype(np.int32))
-        pcb, pcr = chroma_mc_pallas(cb, cr, mv, search_range=r,
-                                    interpret=True)
-        np.testing.assert_array_equal(
-            np.asarray(pcb),
-            np.asarray(motion_compensate(cb, mv, search_range=r, mb=8)))
-        np.testing.assert_array_equal(
-            np.asarray(pcr),
-            np.asarray(motion_compensate(cr, mv, search_range=r, mb=8)))
-
-
-def test_chroma_mc_distinct_shift_rolls_bit_identical(monkeypatch):
-    """The chroma rolls arm enumerates only the ~(r+2)^2 DISTINCT
-    floor-halved shifts (round 3: 225 → 64 rolls at r=7) and stays
-    bit-identical to the flat-gather formulation."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops import motion
-
-    rng = np.random.default_rng(4)
-    chroma = jnp.asarray(rng.random((32, 48)).astype(np.float32))
-    for r in (7, 4, 1):
-        mv = jnp.asarray(rng.integers(-r, r + 1, (4, 6, 2))
-                         .astype(np.int32))
-        monkeypatch.setenv("FLUTPU_MC_ROLLS", "1")
-        a = motion.motion_compensate(chroma, mv, search_range=r, mb=8)
-        monkeypatch.setenv("FLUTPU_MC_ROLLS", "0")
-        b = motion.motion_compensate(chroma, mv, search_range=r, mb=8)
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_motion_pallas_kernel_lane_pads_odd_widths():
-    """Round-4: the search+predict kernel lane-pads internally, so widths
-    that are not 128-multiples (720p's 1280/2=640 pooled, 480, ...) take
-    the kernel instead of the XLA fallback — still bit-identical."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import motion_compensate, motion_search
-    from flutpu.codec.ops.motion_pallas import motion_search_mc_pallas
-    rng = np.random.default_rng(5)
-    for (h, w) in ((64, 96), (48, 480)):
-        prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
-        cur = np.roll(prev, (3, -5), axis=(0, 1)) + \
-            rng.normal(0, 2, (h, w)).astype(np.float32)
-        mv_ref = np.asarray(motion_search(jnp.asarray(cur),
-                                          jnp.asarray(prev),
-                                          search_range=7))
-        pred_ref = np.asarray(motion_compensate(jnp.asarray(prev),
-                                                jnp.asarray(mv_ref),
-                                                search_range=7))
-        mv, pred = motion_search_mc_pallas(
-            jnp.asarray(cur), jnp.asarray(prev), search_range=7,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(mv), mv_ref)
-        np.testing.assert_array_equal(np.asarray(pred), pred_ref)
-
-
-def test_motion_hier_pallas_matches_xla_hier():
-    """Round-4 hier kernel (coarse-to-fine + candidate skipping) is
-    bit-identical to motion_search_hier + motion_compensate — the
-    TPU-hier ≡ CPU-hier contract of the verdict."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import (motion_compensate,
-                                         motion_search_hier)
-    from flutpu.codec.ops.motion_pallas import motion_search_mc_hier_pallas
-    rng = np.random.default_rng(11)
-    for (h, w) in ((64, 128), (128, 192), (64, 96)):
-        prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
-        cur = np.roll(prev, (4, -3), axis=(0, 1)).astype(np.float32)
-        cur[16:32, 32:48] = rng.uniform(0, 255, (16, 16))  # divergent mb
-        mv_ref = np.asarray(motion_search_hier(jnp.asarray(cur),
-                                               jnp.asarray(prev),
-                                               search_range=7))
-        pred_ref = np.asarray(motion_compensate(jnp.asarray(prev),
-                                                jnp.asarray(mv_ref),
-                                                search_range=7))
-        mv, pred = motion_search_mc_hier_pallas(
-            jnp.asarray(cur), jnp.asarray(prev), search_range=7,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(mv), mv_ref)
-        np.testing.assert_array_equal(np.asarray(pred), pred_ref)
-
-
-def test_chroma_mc_pallas_banded_4k_shape():
-    """Round-4 band split: 4K chroma (1080x1920) rides the kernel —
-    previously the VMEM-fit gate sent it to the XLA arm. Tested at the
-    4K-like shape per the CLAUDE.md lowering rule, incl. the 56-row tail
-    band."""
-    import jax.numpy as jnp
-    from flutpu.codec.ops.motion import motion_compensate
-    from flutpu.codec.ops.motion_pallas import chroma_mc_fits, chroma_mc_pallas
-    assert chroma_mc_fits(1080, 1920)
-    rng = np.random.default_rng(13)
-    hc, wc, r = 1080, 1920, 7
-    cb = jnp.asarray(rng.normal(128, 30, (hc, wc)).astype(np.float32))
-    cr = jnp.asarray(rng.normal(128, 30, (hc, wc)).astype(np.float32))
-    mv = jnp.asarray(rng.integers(-r, r + 1,
-                                  (hc // 8, wc // 8, 2)).astype(np.int32))
-    ref_cb = np.asarray(motion_compensate(cb, mv, search_range=r, mb=8))
-    ref_cr = np.asarray(motion_compensate(cr, mv, search_range=r, mb=8))
-    got_cb, got_cr = chroma_mc_pallas(cb, cr, mv, search_range=r,
-                                      interpret=True)
-    np.testing.assert_array_equal(np.asarray(got_cb), ref_cb)
-    np.testing.assert_array_equal(np.asarray(got_cr), ref_cr)

@@ -1,6 +1,6 @@
-"""tpujpegenc element tests: the TPU encode path inside real pipelines —
+"""tpujpegenc element tests: the device encode path inside real pipelines —
 the end-to-end slice (SURVEY §7.3/7.4): source → GOP scatter → per-branch
-TPU encode → ordered gather → decodable bitstreams."""
+device encode → ordered gather → decodable bitstreams."""
 
 import numpy as np
 import pytest
@@ -50,7 +50,7 @@ def test_encoder_caps_negotiation():
 
 
 def test_hype_with_tpu_encoders():
-    """The minimum end-to-end slice: GOP scatter → parallel TPU encode →
+    """The minimum end-to-end slice: GOP scatter → parallel device encode →
     ordered gather; outputs must be in-order, decodable, faithful."""
     h = Harness("hype gop-size=4 encoder-1=tpujpegenc encoder-2=tpujpegenc")
     h.set_src_caps(CAPS)

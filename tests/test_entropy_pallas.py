@@ -1,5 +1,6 @@
-"""The Pallas pack kernel (interpret mode on CPU) must be bit-identical to
-the lax.scan formulation and to the host coder."""
+"""The Pallas pack kernel (compiled through Triton on the card, interpret
+mode on CPU) must be bit-identical to the lax.scan formulation and to the
+host coder."""
 
 import numpy as np
 import pytest
@@ -8,12 +9,12 @@ import jax.numpy as jnp
 
 from flutpu.codec.jpeg import JpegEncoder
 from flutpu.codec.ops.entropy import _pack_block_bits, _slot_tables
-from flutpu.codec.ops.entropy_pallas import pack_block_bits_pallas
+from flutpu.codec.ops.pack_kernel import pack_segments
 from flutpu.core.elements import make_test_frame
 
 
-def _random_slots(b, seed):
-    """Realistic slot tables from random quantized blocks."""
+def _random_blocks(b, seed):
+    """Random sparse quantized blocks and their component classes."""
     rng = np.random.default_rng(seed)
     zz = np.zeros((b, 64), np.int32)
     for i in range(b):
@@ -21,14 +22,14 @@ def _random_slots(b, seed):
         pos = rng.choice(64, size=n, replace=False)
         zz[i, pos] = rng.integers(-200, 200, size=n)
     comp = (np.arange(b) % 3 > 0).astype(np.int32)
-    return _slot_tables(jnp.asarray(zz), jnp.asarray(comp))
+    return jnp.asarray(zz), jnp.asarray(comp)
 
 
 @pytest.mark.parametrize("b", [1, 7, 130])
 def test_pallas_matches_scan(b):
-    lens, vals = _random_slots(b, seed=b)
-    buf_s, nb_s = _pack_block_bits(lens, vals)
-    buf_p, nb_p = pack_block_bits_pallas(lens, vals, interpret=True)
+    zz, comp = _random_blocks(b, seed=b)
+    buf_s, nb_s = _pack_block_bits(*_slot_tables(zz, comp))
+    buf_p, nb_p = pack_segments(zz, comp, seg_g=1, n_words=64)
     np.testing.assert_array_equal(np.asarray(nb_p), np.asarray(nb_s))
     np.testing.assert_array_equal(np.asarray(buf_p), np.asarray(buf_s))
 
@@ -36,33 +37,20 @@ def test_pallas_matches_scan(b):
 def test_full_pipeline_with_pallas_interpret():
     frames = make_test_frame("gradient", 32, 32, 2)[None]
     host = JpegEncoder(quality=85, engine="host").encode_gop(frames)
-    dev = JpegEncoder(quality=85, engine="device",
-                      use_pallas=True)
-    # interpret mode: patch the jit'd path via env-independent direct call
-    from flutpu.codec.ops import entropy
-    import flutpu.codec.ops.entropy_pallas as ep
-    orig = ep.pack_block_bits_pallas64
-    orig_f = ep.pack_block_bits_fused
-    ep.pack_block_bits_pallas64 = lambda l, h, o, interpret=False: orig(
-        l, h, o, interpret=True)
-    ep.pack_block_bits_fused = lambda z, c, interpret=False: orig_f(
-        z, c, interpret=True)
-    try:
-        out = dev.encode_gop(frames)
-    finally:
-        ep.pack_block_bits_pallas64 = orig
-        ep.pack_block_bits_fused = orig_f
+    # use_pallas=True on the CPU runs the kernel in interpret mode
+    dev = JpegEncoder(quality=85, engine="device", use_pallas=True)
+    assert dev.use_pallas
+    out = dev.encode_gop(frames)
     assert out == host
 
 
 def test_merged_64bit_slots_bit_identical():
-    """Merged 64-bit slots (scan + pallas-interpret) match the 32-bit slot
-    scan packer bit for bit."""
+    """Merged 64-bit slots (scan + kernel) match the 32-bit slot scan
+    packer bit for bit."""
     from flutpu.codec.ops.entropy import (_pack_block_bits,
                                           _pack_block_bits64,
                                           _slot_tables,
                                           _slot_tables_merged)
-    from flutpu.codec.ops.entropy_pallas import pack_block_bits_pallas64
 
     rng = np.random.default_rng(42)
     zz = rng.integers(-40, 40, size=(96, 64)).astype(np.int32)
@@ -81,20 +69,19 @@ def test_merged_64bit_slots_bit_identical():
     np.testing.assert_array_equal(np.asarray(ref_buf), np.asarray(buf64))
     np.testing.assert_array_equal(np.asarray(ref_nb), np.asarray(nb64))
 
-    buf_p, nb_p = pack_block_bits_pallas64(ml, mh, mo, interpret=True)
+    buf_p, nb_p = pack_segments(jnp.asarray(zz), jnp.asarray(comp),
+                                seg_g=1, n_words=64)
     np.testing.assert_array_equal(np.asarray(ref_buf), np.asarray(buf_p))
     np.testing.assert_array_equal(np.asarray(ref_nb), np.asarray(nb_p))
 
 
 def test_fused_slot_pack_bit_identical():
-    """The round-3 fused slot+pack kernel (slot symbol math computed
-    in-kernel, run-lengths as loop state) is bit-identical to the split
-    _slot_tables_merged + _pack_block_bits64 formulation, across DC-only
-    blocks, >47-zero runs (3 ZRLs), nonzero position 63 (no EOB), and
-    both component classes."""
+    """The kernel (slot symbol math computed in-kernel, run-lengths as
+    loop state) is bit-identical to the split _slot_tables_merged +
+    _pack_block_bits64 formulation, across DC-only blocks, >47-zero runs
+    (3 ZRLs), nonzero position 63 (no EOB), and both component classes."""
     from flutpu.codec.ops.entropy import (_pack_block_bits64,
                                           _slot_tables_merged)
-    from flutpu.codec.ops.entropy_pallas import pack_block_bits_fused
 
     rng = np.random.default_rng(17)
     b = 260
@@ -111,18 +98,17 @@ def test_fused_slot_pack_bit_identical():
 
     lens, his, los = _slot_tables_merged(jnp.asarray(zz), jnp.asarray(comp))
     ref_buf, ref_nb = _pack_block_bits64(lens, his, los)
-    got_buf, got_nb = pack_block_bits_fused(jnp.asarray(zz),
-                                            jnp.asarray(comp),
-                                            interpret=True)
+    got_buf, got_nb = pack_segments(jnp.asarray(zz), jnp.asarray(comp),
+                                    seg_g=1, n_words=64)
     np.testing.assert_array_equal(np.asarray(got_nb), np.asarray(ref_nb))
     np.testing.assert_array_equal(np.asarray(got_buf), np.asarray(ref_buf))
 
 
 class TestSegmentLayout:
-    """Round-4 segment bitstream layout: the pack kernel emits per-lane
-    segments of SEG_G consecutive blocks, the device word-aligns whole
-    segments (no block-granular concat), the host bit-compacts. The
-    contract everywhere is BYTE IDENTITY with the v2/v3 stream."""
+    """Segment bitstream layout: the packer emits per-lane segments of
+    SEG_G consecutive blocks, the device word-aligns whole segments (no
+    block-granular concat), the host bit-compacts. The contract
+    everywhere is BYTE IDENTITY with the block-concat stream."""
 
     def _planes(self, f=2, ybh=8, ybw=12, seed=0, dense=False):
         rng = np.random.default_rng(seed)
@@ -147,7 +133,7 @@ class TestSegmentLayout:
         comb = E.encode_gop_scans_segmented(
             jnp.asarray(yq), jnp.asarray(cbq), jnp.asarray(crq),
             layout=layout, prefix_words=prefix, seg_g=16, seg_words=128,
-            interpret=True)
+            use_pallas=True)
         arr = np.asarray(comb)
         s = arr.shape[1] - 1 - prefix
         for i in range(yq.shape[0]):
@@ -169,10 +155,12 @@ class TestSegmentLayout:
                           segmented=True).encode_gop(frames)
         assert seg == std
 
-    def test_encoder_dispatch_finalize_segmented(self):
+    @pytest.mark.parametrize("use_pallas", [False, True],
+                             ids=["scan", "kernel"])
+    def test_encoder_dispatch_finalize_segmented(self, use_pallas):
         frames = make_test_frame("gradient", 32, 32, 7)[None].repeat(2, 0)
         std = JpegEncoder(quality=85, use_pallas=False)
-        seg = JpegEncoder(quality=85, use_pallas=False, segmented=True)
+        seg = JpegEncoder(quality=85, use_pallas=use_pallas, segmented=True)
         fdev = jnp.asarray(frames)
         want = std.encode_gop_finalize(std.encode_gop_dispatch(fdev, 32, 32))
         got = seg.encode_gop_finalize(seg.encode_gop_dispatch(fdev, 32, 32))

@@ -251,21 +251,24 @@ class TestFvcRateControl:
 
 
 def test_motion_compensate_gather_equals_rolls():
-    """The single-gather prediction is bit-identical to the
-    candidate-enumeration formulation, luma and chroma grids."""
+    """The single-gather prediction is bit-identical to per-macroblock
+    np.roll (the decoder's numpy mirror), luma and chroma grids."""
     import jax.numpy as jnp
-    from flutpu.codec.ops.motion import (motion_compensate,
-                                         _motion_compensate_rolls)
+    from flutpu.codec.fvc import _mc_np
+    from flutpu.codec.ops.motion import motion_compensate
     rng = np.random.default_rng(3)
-    mv = jnp.asarray(rng.integers(-7, 8, (4, 6, 2)).astype(np.int32))
-    luma = jnp.asarray(rng.random((64, 96)).astype(np.float32))
-    chroma = jnp.asarray(rng.random((32, 48)).astype(np.float32))
+    mv_np = rng.integers(-7, 8, (4, 6, 2)).astype(np.int32)
+    mv = jnp.asarray(mv_np)
+    luma = rng.random((64, 96)).astype(np.float32)
+    chroma = rng.random((32, 48)).astype(np.float32)
     np.testing.assert_array_equal(
-        np.asarray(motion_compensate(luma, mv, search_range=7)),
-        np.asarray(_motion_compensate_rolls(luma, mv, 7, 16)))
+        np.asarray(motion_compensate(jnp.asarray(luma), mv,
+                                     search_range=7)),
+        _mc_np(luma, mv_np, 16, chroma=False))
     np.testing.assert_array_equal(
-        np.asarray(motion_compensate(chroma, mv, search_range=7, mb=8)),
-        np.asarray(_motion_compensate_rolls(chroma, mv, 7, 8)))
+        np.asarray(motion_compensate(jnp.asarray(chroma), mv,
+                                     search_range=7, mb=8)),
+        _mc_np(chroma, mv_np, 8, chroma=True))
 
 
 @pytest.mark.slow
@@ -455,7 +458,7 @@ def test_planar_recon_flag_travels_and_decoder_follows_it():
     frames = np.asarray(gradient_ball_frames(48, 64, 6, jnp.float32(0)))
 
     enc = FvcEncoder(quality=85, motion=True)
-    enc.planar = True   # what a TPU-side encoder records
+    enc.planar = True   # what a planar-formulation encoder records
     chunk = enc.encode_chunk(frames)
     assert chunk[5] & 8, "flags bit 3 (planar recon) must be set"
 
@@ -515,11 +518,9 @@ class TestSegmentedLayout:
 
 
 class TestPlanarSourcePath:
-    """Round-4 channel-planar device path: sources/pipelines that carry
-    (r, g, b) planes instead of interleaved (F, H, W, 3) frames (the
-    interleaved minor-dim-3 layout pays ~42x lane padding on TPU; convert
-    measured 8.93 vs 0.21 ms/GOP on the v5e). All planar formulations
-    must be BYTE-identical to the interleaved ones."""
+    """Channel-planar device path: sources/pipelines that carry
+    (r, g, b) planes instead of interleaved (F, H, W, 3) frames. All
+    planar formulations must be BYTE-identical to the interleaved ones."""
 
     def test_planes_src_matches_interleaved_src(self):
         import jax.numpy as jnp

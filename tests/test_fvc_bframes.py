@@ -5,7 +5,7 @@ The reference delegates encoding to x264 (which owns B-frames there,
 /root/reference/hype/README.md pipelines); this is the framework-native
 equivalent on the FVC codec. B frames are non-reference, so the encode
 is a lax.scan over anchors plus ONE parallel pass over every B frame —
-the TPU-shaped formulation (no sequential dependency, no extra carry).
+the device-shaped formulation (no sequential dependency, no extra carry).
 """
 
 import struct

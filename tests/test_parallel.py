@@ -47,9 +47,8 @@ class TestShardedEncode:
 
     @pytest.mark.slow
     def test_planar_input_matches_interleaved(self, qtabs):
-        """Channel-planar sharded encode (round 4: tile-dense upload +
-        kernel front end per shard on TPU) is bit-identical to the
-        interleaved form, on both mesh shapes."""
+        """Channel-planar sharded encode (the product upload layout) is
+        bit-identical to the interleaved form, on both mesh shapes."""
         qy, qc = qtabs
         chunks = rand_chunks(8, 2, 32, 32, seed=2)
         mesh = make_chunk_mesh(8)
@@ -337,7 +336,7 @@ class TestTpuHypeFvc:
 
 class TestSpatialFvcMotion:
     """Round-4 sequence-parallel FVC motion: frames row-striped over the
-    'spatial' mesh axis, ±r halos exchanged with ring ppermutes over ICI,
+    'spatial' mesh axis, ±r halos exchanged with ring ppermutes,
     frame-type decision psum-reduced. Per-pixel results must equal the
     unsharded codec (ring wrap ≡ jnp.roll wrap)."""
 
